@@ -1,11 +1,11 @@
-// Native host runtime for montecarlopathtracer_tpu.
+// Native host runtime for montecarlopathtracer.
 //
 // The reference's host runtime is C++ (its OBJ/MTL parser at
 // CVMCTracer/CVMCTracer/Framework/ObjReader.{hpp,cpp} and its KD-tree
 // builder at MCRT/QuinEngine/Utils/KDTree.hpp). This library is the
 // framework's native equivalent of those two components: a scene loader
 // and an acceleration-structure builder that produce exactly the flat
-// arrays the JAX/TPU device layer consumes. Semantics match the Python
+// arrays the JAX device layer consumes. Semantics match the Python
 // fallbacks in scene/objio.py and accel/kdtree.py bit-for-bit (the
 // Python versions remain the portable oracle; tests assert agreement).
 //

@@ -13,12 +13,12 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from montecarlopathtracer_tpu.models import cornell
-from montecarlopathtracer_tpu.render.integrator import (
+from montecarlopathtracer.models import cornell
+from montecarlopathtracer.render.integrator import (
     TraceConfig,
     render_sample_batch_jit,
 )
-from montecarlopathtracer_tpu.diff.boundary import (
+from montecarlopathtracer.diff.boundary import (
     make_translation_problem,
     unique_edges,
 )
@@ -98,7 +98,7 @@ def test_sgd_recovers_lamp_translation():
 def test_per_vertex_boundary_grad_sums_to_translation():
     """Linearity identity: the per-vertex estimator's row-sum equals
     the rigid-translation gradient (same key → same edge samples)."""
-    from montecarlopathtracer_tpu.diff.boundary import (
+    from montecarlopathtracer.diff.boundary import (
         boundary_grad_translation,
         boundary_grad_vertices,
     )
@@ -128,7 +128,7 @@ def test_per_vertex_boundary_grad_matches_finite_difference():
     one vertex of the ceiling lamp along x and compare the estimator's
     dLoss/dvertex row against a central finite difference."""
     import dataclasses
-    from montecarlopathtracer_tpu.diff.boundary import (
+    from montecarlopathtracer.diff.boundary import (
         boundary_grad_vertices,
     )
 

@@ -6,9 +6,9 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from montecarlopathtracer_tpu.models import cornell
-from montecarlopathtracer_tpu.render.integrator import TraceConfig
-from montecarlopathtracer_tpu.diff.grad import (
+from montecarlopathtracer.models import cornell
+from montecarlopathtracer.render.integrator import TraceConfig
+from montecarlopathtracer.diff.grad import (
     split_params,
     render_image,
     make_loss_fn,
@@ -178,14 +178,14 @@ def test_inverse_rendering_recovers_albedo_direction():
 
 
 def test_megakernel_gradients_match_brute():
-    """The megakernel intersector must yield the same a.e. gradients as
-    the differentiable lax path (VERDICT r2 weak #3: round 2 returned
-    silent zeros here). Forward runs the v4 kernel; backward flows
-    through `nearest_shade_full_diff`'s winner recompute."""
+    """The nearest-kernel intersector must yield the same a.e.
+    gradients as the differentiable lax path (a kernel-only path once
+    returned silent zeros here). Forward picks winners in the kernel;
+    the backward flows through `refine_hit`'s winner recompute."""
     scene, cam = _scene()
     key = jax.random.key(5)
     cfg_m = TraceConfig(
-        max_depth=2, ray_chunk=0, intersector="megakernel",
+        max_depth=2, ray_chunk=0, intersector="nearest",
         pallas_interpret=True,
     )
 
@@ -205,18 +205,18 @@ def test_megakernel_gradients_match_brute():
 
     g_brute = jax.grad(mean_brightness(CFG))(jnp.float32(1.0))
     g_mega = jax.grad(mean_brightness(cfg_m))(jnp.float32(1.0))
-    assert float(g_mega) > 0.0  # the r2 behavior was exactly 0.0
+    assert float(g_mega) > 0.0  # a detached kernel would give exactly 0.0
     np.testing.assert_allclose(float(g_mega), float(g_brute), rtol=2e-3)
 
 
 def test_megakernel_vertex_gradient_matches_brute():
-    """Vertex-position cotangents must flow through the megakernel's
-    custom_vjp (rows → pack_rows_full → triangle transforms →
+    """Vertex-position cotangents must flow through the nearest
+    intersector's winner recompute (refine_hit → triangle transforms →
     vertices) and match the lax path."""
     scene, cam = _scene()
     key = jax.random.key(6)
     cfg_m = TraceConfig(
-        max_depth=2, ray_chunk=0, intersector="megakernel",
+        max_depth=2, ray_chunk=0, intersector="nearest",
         pallas_interpret=True,
     )
 

@@ -6,16 +6,16 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from montecarlopathtracer_tpu.render.film import (
+from montecarlopathtracer.render.film import (
     Film,
     film_update,
     film_update_gamma,
     tonemap_linear,
     tonemap_gamma,
 )
-from montecarlopathtracer_tpu.render.renderer import Renderer, RenderSettings
-from montecarlopathtracer_tpu.render.integrator import TraceConfig
-from montecarlopathtracer_tpu.models import cornell
+from montecarlopathtracer.render.renderer import Renderer, RenderSettings
+from montecarlopathtracer.render.integrator import TraceConfig
+from montecarlopathtracer.models import cornell
 
 
 def test_running_mean_matches_overall_mean():

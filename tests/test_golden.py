@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from montecarlopathtracer_tpu.utils.golden import compare_images
+from montecarlopathtracer.utils.golden import compare_images
 
 
 def test_identical_images():

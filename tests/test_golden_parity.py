@@ -1,6 +1,6 @@
 """Low-res CPU parity against the reference's committed render.
 
-The full-resolution TPU run lives in tools/golden_run.py (results:
+The full-resolution GPU run lives in tools/golden_run.py (results:
 GOLDEN.md, goldens/GOLDEN.json). This is the CI-sized version: render
 scene02 at 100×75 / 16 spp with the lax oracle and compare the
 structure (5×5-downsampled MAE) against `result2.png` downsampled to
@@ -12,7 +12,7 @@ see GOLDEN.md), so no scale fitting is needed here.
 import numpy as np
 import pytest
 
-from montecarlopathtracer_tpu.models import cornell
+from montecarlopathtracer.models import cornell
 
 GOLDEN = "/root/reference/CVMCTracer/CVMCTracer/result2.png"
 
@@ -21,13 +21,13 @@ GOLDEN = "/root/reference/CVMCTracer/CVMCTracer/result2.png"
     not cornell.has_reference_scenes(), reason="reference scenes not mounted"
 )
 def test_scene2_structural_parity_vs_committed_golden():
-    from montecarlopathtracer_tpu.render.film import tonemap_linear
-    from montecarlopathtracer_tpu.render.integrator import TraceConfig
-    from montecarlopathtracer_tpu.render.renderer import (
+    from montecarlopathtracer.render.film import tonemap_linear
+    from montecarlopathtracer.render.integrator import TraceConfig
+    from montecarlopathtracer.render.renderer import (
         Renderer,
         RenderSettings,
     )
-    from montecarlopathtracer_tpu.utils.image import load_png
+    from montecarlopathtracer.utils.image import load_png
 
     golden = load_png(GOLDEN).astype(np.float64) / 255.0  # (600, 800, 3)
     scene, cam = cornell.load_reference_scene(2, width=100, height=75)

@@ -6,10 +6,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from montecarlopathtracer_tpu.models import cornell
-from montecarlopathtracer_tpu.models.cornell import _Builder
-from montecarlopathtracer_tpu.scene.scene import scene_pack_from_model
-from montecarlopathtracer_tpu.render.integrator import (
+from montecarlopathtracer.models import cornell
+from montecarlopathtracer.models.cornell import _Builder
+from montecarlopathtracer.scene.scene import scene_pack_from_model
+from montecarlopathtracer.render.integrator import (
     TraceConfig,
     trace_radiance_jit as trace_radiance,
     render_sample_batch_jit as render_sample_batch,
@@ -150,3 +150,146 @@ def test_cornell_smoke_render():
     assert right[..., 2].mean() > right[..., 0].mean()
     # some global illumination reached the floor
     assert img[20:, 8:-8].mean() > 0.01
+
+
+def _one_segment_inputs(R=64, seed=0):
+    """A shaded wavefront inside the full Cornell box plus uniforms."""
+    from montecarlopathtracer.render.integrator import _make_intersect_shade
+
+    scene, _ = cornell.cornell_box(
+        with_mirror_sphere=True, with_glass_sphere=True, width=8, height=8
+    )
+    key = jax.random.key(seed)
+    k = jax.random.split(key, 6)
+    lo, hi = (np.asarray(x) for x in scene.aabb())
+    pos = jnp.asarray(
+        (lo + (hi - lo) * (0.1 + 0.8 * np.asarray(jax.random.uniform(k[0], (R, 3))))).T,
+        jnp.float32,
+    )
+    d = jax.random.normal(k[1], (3, R))
+    d = d / jnp.linalg.norm(d, axis=0, keepdims=True)
+    throughput = jax.random.uniform(k[2], (3, R), minval=0.05, maxval=1.0)
+    result = jnp.zeros((3, R))
+    active = jax.random.uniform(k[3], (R,)) > 0.2
+    u = jax.random.uniform(k[4], (3, R))
+    cfg = TraceConfig(max_depth=4, rr_depth=2, ray_chunk=0)
+    s = _make_intersect_shade(scene, cfg, None)(pos, d)
+    return s, pos, d, throughput, result, active, u
+
+
+@pytest.mark.parametrize(
+    "mode,depth",
+    [("fixed", 0), ("fixed", 4), ("rr", 0), ("rr", 3), ("rr", 6)],
+)
+def test_segment_epilogue_lane_flags_match_scalar(mode, depth):
+    """Per-lane [R] depth flags (regenerating wavefront) and scalar
+    flags (scan integrator) give bit-identical segment updates when
+    every lane sits at the same depth."""
+    from montecarlopathtracer.render.integrator import (
+        segment_epilogue,
+        segment_flags,
+    )
+
+    s, pos, d, throughput, result, active, u = _one_segment_inputs()
+    R = pos.shape[1]
+    cfg = TraceConfig(mode=mode, max_depth=4, rr_depth=2, ray_chunk=0)
+    u_rr = u[2] if mode == "rr" else None
+    scalar = segment_epilogue(
+        cfg, s, pos, d, throughput, result, active, u[0], u[1], u_rr,
+        *segment_flags(cfg, jnp.int32(depth)),
+    )
+    lanes = segment_epilogue(
+        cfg, s, pos, d, throughput, result, active, u[0], u[1], u_rr,
+        *segment_flags(cfg, jnp.full((R,), depth, jnp.int32)),
+    )
+    for x, y in zip(scalar, lanes):
+        np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
+    still = np.asarray(scalar[4])
+    assert not still[~np.asarray(active)].any()  # dead lanes stay dead
+
+
+@pytest.mark.parametrize(
+    "mode,depth,expect",
+    [
+        ("fixed", 3, (False, False, False)),
+        ("fixed", 4, (True, False, False)),
+        ("rr", 1, (False, False, False)),
+        ("rr", 2, (False, True, False)),
+        ("rr", 6, (False, False, True)),
+    ],
+)
+def test_segment_flags(mode, depth, expect):
+    from montecarlopathtracer.render.integrator import segment_flags
+
+    cfg = TraceConfig(mode=mode, max_depth=4, rr_depth=2)
+    got = segment_flags(cfg, jnp.asarray([depth, depth], jnp.int32))
+    for g, e in zip(got, expect):
+        assert g.shape == (2,)
+        assert bool(g[0]) is e and bool(g[1]) is e
+
+
+@pytest.mark.parametrize(
+    "requested,platform,expect",
+    [
+        ("auto", "gpu", "nearest"),
+        ("auto", "cpu", "brute"),
+        ("brute", "gpu", "brute"),
+        ("brute", "cpu", "brute"),
+        ("kdtree", "gpu", "kdtree"),
+        ("nearest", "cpu", "nearest"),
+    ],
+)
+def test_resolve_intersector(requested, platform, expect):
+    from montecarlopathtracer.render.integrator import resolve_intersector
+
+    assert resolve_intersector(requested, platform) == expect
+
+
+def test_resolve_intersector_rejects_other_platforms():
+    from montecarlopathtracer.render.integrator import resolve_intersector
+
+    with pytest.raises(RuntimeError):
+        resolve_intersector("auto", "rocm")
+
+
+@pytest.mark.parametrize(
+    "requested,intersector,expect",
+    [(None, "nearest", 0), (None, "brute", 30000), (4096, "nearest", 4096)],
+)
+def test_resolve_ray_chunk(requested, intersector, expect):
+    from montecarlopathtracer.cli import resolve_ray_chunk
+
+    assert resolve_ray_chunk(requested, intersector) == expect
+
+
+def test_nearest_intersector_renders_like_brute():
+    """The scan integrator on the nearest kernel (interpreted) renders
+    the same image as on the lax oracle, and the default "outputs"
+    remat (the kernel index saved for the backward) gives the same
+    gradient as replaying the kernel."""
+    scene, cam = cornell.cornell_box(width=12, height=10)
+    key = jax.random.key(4)
+    base = dict(max_depth=2, ray_chunk=0)
+    img_b = render_sample_batch(
+        scene, cam, key, width=12, height=10, config=TraceConfig(**base)
+    )
+    cfg_n = TraceConfig(intersector="nearest", pallas_interpret=True, **base)
+    img_n = render_sample_batch(
+        scene, cam, key, width=12, height=10, config=cfg_n
+    )
+    np.testing.assert_allclose(np.asarray(img_n), np.asarray(img_b),
+                               rtol=1e-5, atol=1e-6)
+
+    from montecarlopathtracer.diff.grad import render_image
+
+    def g(cfg):
+        def f(s):
+            p = {"mat_kd": scene.mat_kd * s}
+            return jnp.mean(render_image(p, scene, cam, key, width=12,
+                                         height=10, spp=1, config=cfg))
+        return float(jax.grad(f)(jnp.float32(1.0)))
+
+    cfg_r = TraceConfig(intersector="nearest", pallas_interpret=True,
+                        remat_segments=True, **base)
+    assert cfg_n.remat_segments == "outputs"  # the default
+    np.testing.assert_allclose(g(cfg_n), g(cfg_r), rtol=1e-6)

@@ -7,7 +7,7 @@ import jax.numpy as jnp
 import pytest
 
 import jax as _jax
-from montecarlopathtracer_tpu.ops.intersect import (
+from montecarlopathtracer.ops.intersect import (
     triangle_transforms as _triangle_transforms,
     intersect_brute as _intersect_brute,
 )

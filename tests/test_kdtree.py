@@ -6,19 +6,19 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from montecarlopathtracer_tpu.accel.kdtree import (
+from montecarlopathtracer.accel.kdtree import (
     build_kdtree,
     flatten_kdtree,
     validate_kdtree,
     dump_obj,
     LEAF_MAX,
 )
-from montecarlopathtracer_tpu.ops.intersect import (
+from montecarlopathtracer.ops.intersect import (
     triangle_transforms,
     intersect_brute,
 )
-from montecarlopathtracer_tpu.ops.traverse import KDArrays, intersect_kdtree
-from montecarlopathtracer_tpu.models import cornell
+from montecarlopathtracer.ops.traverse import KDArrays, intersect_kdtree
+from montecarlopathtracer.models import cornell
 
 _intersect_brute = jax.jit(intersect_brute)
 _intersect_kd = jax.jit(intersect_kdtree)

@@ -4,8 +4,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from montecarlopathtracer_tpu.models import cornell, glossy
-from montecarlopathtracer_tpu.render.integrator import (
+from montecarlopathtracer.models import cornell, glossy
+from montecarlopathtracer.render.integrator import (
     TraceConfig,
     render_sample_batch_jit,
 )
@@ -39,7 +39,7 @@ def test_glossy_steps_renders_light():
 
 
 def test_bunny_scene_structure_and_smoke():
-    from montecarlopathtracer_tpu.models.bunny import bunny_scene
+    from montecarlopathtracer.models.bunny import bunny_scene
 
     scene, cam = bunny_scene(subdiv=3, width=16, height=16)
     T = int(np.asarray(scene.tri_valid).sum())
@@ -124,11 +124,9 @@ def test_scene3_loads_with_scene1_camera():
 
 
 def test_distributed_noop_single_process(monkeypatch):
-    from montecarlopathtracer_tpu.parallel import distributed
+    from montecarlopathtracer.parallel import distributed
 
     monkeypatch.delenv("JAX_COORDINATOR_ADDRESS", raising=False)
-    monkeypatch.delenv("TPU_WORKER_HOSTNAMES", raising=False)
-    monkeypatch.delenv("MEGASCALE_COORDINATOR_ADDRESS", raising=False)
     assert distributed.ensure_initialized() is False
     info = distributed.process_info()
     assert info["process_count"] == 1
@@ -138,7 +136,7 @@ def test_distributed_noop_single_process(monkeypatch):
 def test_scene03_smoke_render():
     """scene03 end-to-end smoke (VERDICT r2 weak #10): loads, renders
     finite and non-black at low res with the in-box camera."""
-    from montecarlopathtracer_tpu.models import cornell
+    from montecarlopathtracer.models import cornell
 
     if not cornell.has_reference_scenes():
         import pytest
@@ -147,7 +145,7 @@ def test_scene03_smoke_render():
     import jax
     import jax.numpy as jnp
     import numpy as np
-    from montecarlopathtracer_tpu.render.integrator import (
+    from montecarlopathtracer.render.integrator import (
         TraceConfig,
         render_sample_batch_jit,
     )

@@ -14,8 +14,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from montecarlopathtracer_tpu.models import cornell
-from montecarlopathtracer_tpu.render.integrator import (
+from montecarlopathtracer.models import cornell
+from montecarlopathtracer.render.integrator import (
     TraceConfig,
     render_sample_batch,
 )
@@ -43,7 +43,7 @@ def test_render_produces_no_nans_under_debug_nans(debug_nans, mode):
 
 
 def test_gradients_produce_no_nans_under_debug_nans(debug_nans):
-    from montecarlopathtracer_tpu.diff.grad import (
+    from montecarlopathtracer.diff.grad import (
         split_params,
         make_loss_fn,
     )
@@ -64,25 +64,25 @@ def test_gradients_produce_no_nans_under_debug_nans(debug_nans):
 
 
 def test_vertex_grads_finite_through_megakernel_fresnel():
-    """r4 regression: sqrt(max(x, 0)) at the TIR/grazing boundary used
+    """Regression: sqrt(max(x, 0)) at the TIR/grazing boundary used
     to produce 0·∞ = NaN in sample_fresnel's backward, poisoning
-    vertex gradients through the megakernel on any specular scene.
+    vertex gradients through the kernel path on any specular scene.
     Interior vertex gradients must be exactly zero (the material model
     cancels every geometric factor — diff/grad.py), never NaN."""
     import jax
     import jax.numpy as jnp
     import numpy as np
 
-    from montecarlopathtracer_tpu.models import cornell
-    from montecarlopathtracer_tpu.render.integrator import TraceConfig
-    from montecarlopathtracer_tpu.diff.grad import make_loss_fn, split_params
+    from montecarlopathtracer.models import cornell
+    from montecarlopathtracer.render.integrator import TraceConfig
+    from montecarlopathtracer.diff.grad import make_loss_fn, split_params
 
     scene, cam = cornell.cornell_box(
         with_mirror_sphere=True, with_glass_sphere=True, width=16, height=16
     )
     params = split_params(scene, ("vertices",))
     cfg = TraceConfig(
-        mode="fixed", max_depth=3, ray_chunk=0, intersector="megakernel",
+        mode="fixed", max_depth=3, ray_chunk=0, intersector="nearest",
         pallas_interpret=True, remat_segments=False,
     )
     loss_fn = make_loss_fn(

@@ -11,14 +11,14 @@ import textwrap
 import numpy as np
 import pytest
 
-from montecarlopathtracer_tpu import native
-from montecarlopathtracer_tpu.scene.objio import _read_obj_py, read_obj
-from montecarlopathtracer_tpu.accel.kdtree import (
+from montecarlopathtracer import native
+from montecarlopathtracer.scene.objio import _read_obj_py, read_obj
+from montecarlopathtracer.accel.kdtree import (
     build_kdtree,
     flatten_kdtree,
     build_flat_kdtree,
 )
-from montecarlopathtracer_tpu.models import cornell
+from montecarlopathtracer.models import cornell
 
 pytestmark = pytest.mark.skipif(
     not native.available(),

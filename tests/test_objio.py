@@ -7,9 +7,9 @@ import textwrap
 import numpy as np
 import pytest
 
-from montecarlopathtracer_tpu.scene.objio import read_obj
-from montecarlopathtracer_tpu.scene.scene import scene_pack_from_model
-from montecarlopathtracer_tpu.models import cornell
+from montecarlopathtracer.scene.objio import read_obj
+from montecarlopathtracer.scene.scene import scene_pack_from_model
+from montecarlopathtracer.models import cornell
 
 
 def _write(tmp_path, name, content):

@@ -7,16 +7,16 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from montecarlopathtracer_tpu.models import cornell
-from montecarlopathtracer_tpu.parallel.mesh import make_mesh
-from montecarlopathtracer_tpu.parallel.sharded import (
+from montecarlopathtracer.models import cornell
+from montecarlopathtracer.parallel.mesh import make_mesh
+from montecarlopathtracer.parallel.sharded import (
     sharded_sample_pass,
     make_progressive_step,
     make_train_step,
 )
-from montecarlopathtracer_tpu.render.integrator import TraceConfig
-from montecarlopathtracer_tpu.render.film import Film
-from montecarlopathtracer_tpu.diff.grad import split_params
+from montecarlopathtracer.render.integrator import TraceConfig
+from montecarlopathtracer.render.film import Film
+from montecarlopathtracer.diff.grad import split_params
 
 pytestmark = pytest.mark.skipif(
     len(jax.devices()) < 8, reason="needs 8 (virtual) devices"
@@ -105,14 +105,14 @@ def test_train_step_reduces_loss():
 
 
 def test_sharded_pass_megakernel_matches_brute():
-    """The Pallas megakernel must run inside the shard_map SPMD body
-    (the real multi-chip configuration) and reproduce the brute path's
-    image exactly — same keys, same decisions, same estimator."""
-    from montecarlopathtracer_tpu.render.integrator import TraceConfig as TC
+    """The Pallas nearest kernel must run inside the shard_map SPMD
+    body (the real multi-card configuration) and reproduce the brute
+    path's image — same keys, same decisions, same estimator."""
+    from montecarlopathtracer.render.integrator import TraceConfig as TC
 
     scene, cam = cornell.cornell_box(width=16, height=16)
     mesh = make_mesh(4, 2)
-    cfg_m = TC(max_depth=2, ray_chunk=0, intersector="megakernel",
+    cfg_m = TC(max_depth=2, ray_chunk=0, intersector="nearest",
                pallas_interpret=True)
     f_m = sharded_sample_pass(mesh, width=16, height=16, spp=4, config=cfg_m)
     f_b = sharded_sample_pass(mesh, width=16, height=16, spp=4, config=CFG)
@@ -127,10 +127,10 @@ def test_sharded_geom_train_step_recovers_translation():
     """BASELINE config 5 under shard_map: the sharded geometry step
     (render bands + probe rays sharded, θ-gradient psum over both mesh
     axes) recovers a lamp x-translation from a target image."""
-    from montecarlopathtracer_tpu.parallel.sharded import (
+    from montecarlopathtracer.parallel.sharded import (
         make_geom_train_step,
     )
-    from montecarlopathtracer_tpu.render.integrator import (
+    from montecarlopathtracer.render.integrator import (
         render_sample_batch_jit,
     )
 
@@ -173,14 +173,14 @@ def test_sharded_regen_pass():
     each device drains its row band's quota with an independent
     while_loop; the image is finite, band-sharded, and statistically
     consistent with the scan pass (same estimator, iid streams)."""
-    from montecarlopathtracer_tpu.parallel.sharded import (
+    from montecarlopathtracer.parallel.sharded import (
         sharded_regen_pass,
     )
-    from montecarlopathtracer_tpu.render.integrator import TraceConfig as TC
+    from montecarlopathtracer.render.integrator import TraceConfig as TC
 
     scene, cam = cornell.cornell_box(width=16, height=16)
     mesh = make_mesh(4, 2)
-    cfg = TC(max_depth=2, ray_chunk=0, intersector="megakernel",
+    cfg = TC(max_depth=2, ray_chunk=0, intersector="nearest",
              pallas_interpret=True)
     f_r = sharded_regen_pass(mesh, width=16, height=16, spp=4, config=cfg)
     f_s = sharded_sample_pass(mesh, width=16, height=16, spp=4, config=cfg)

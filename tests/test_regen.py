@@ -4,9 +4,10 @@ Two layers, CPU/interpret:
 
 - spp=1: no lane ever regenerates, so every live lane sits at the same
   depth and the stream indexing coincides with the scan integrator's —
-  the result must be BIT-IDENTICAL to `render_rows_planar` (this
-  exercises the per-lane-flags kernels end to end: equal-depth lane
-  flags must reproduce the scalar-flags arithmetic exactly).
+  the result must be BIT-IDENTICAL to `render_rows_planar` on every
+  intersector (this exercises the per-lane depth flags of the shared
+  segment epilogue end to end: equal-depth lane flags must reproduce
+  the scalar-flags arithmetic exactly).
 - spp>1: different (still iid) stream association — check the
   estimator statistically: global means agree within MC noise, and the
   regen image is unbiased against a converged scan reference.
@@ -17,12 +18,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from montecarlopathtracer_tpu.models import cornell
-from montecarlopathtracer_tpu.render.integrator import (
+from montecarlopathtracer.models import cornell
+from montecarlopathtracer.render.integrator import (
     TraceConfig,
     render_rows_planar,
 )
-from montecarlopathtracer_tpu.render.regen import render_regen_planar
+from montecarlopathtracer.render.regen import render_regen_planar
 
 
 def _scene(w, h):
@@ -32,9 +33,10 @@ def _scene(w, h):
 @pytest.mark.parametrize(
     "kw",
     [
-        dict(mode="fixed", max_depth=3, intersector="megakernel"),
-        dict(mode="rr", rr_depth=2, illum=1.0, intersector="megakernel"),
-        dict(mode="fixed", max_depth=2, intersector="traverse"),
+        dict(mode="fixed", max_depth=3, intersector="nearest"),
+        dict(mode="rr", rr_depth=2, illum=1.0, intersector="nearest"),
+        dict(mode="fixed", max_depth=2, intersector="brute"),
+        dict(mode="rr", rr_depth=2, illum=1.0, intersector="brute"),
     ],
 )
 def test_regen_spp1_bit_identical(kw):
@@ -51,7 +53,7 @@ def test_regen_multi_spp_statistics():
     W, H = 24, 18
     scene, camera = _scene(W, H)
     cfg = TraceConfig(
-        mode="rr", rr_depth=2, illum=1.0, intersector="megakernel",
+        mode="rr", rr_depth=2, illum=1.0, intersector="nearest",
         pallas_interpret=True, ray_chunk=0,
     )
     key = jax.random.key(11)
@@ -71,13 +73,3 @@ def test_regen_multi_spp_statistics():
     )
     assert np.isfinite(b).all()
     assert (b >= 0).all()
-
-
-def test_regen_rejects_lax_intersectors():
-    W, H = 8, 6
-    scene, camera = _scene(W, H)
-    cfg = TraceConfig(intersector="brute")
-    with pytest.raises(ValueError):
-        render_regen_planar(
-            scene, camera, jax.random.key(0), W, H, 2, cfg
-        )

@@ -6,7 +6,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from montecarlopathtracer_tpu.ops.sampling import (
+from montecarlopathtracer.ops.sampling import (
     sample_hemi,
     sample_phong,
     sample_fresnel,
@@ -129,7 +129,7 @@ def test_sample_phong_reflect_lobe():
     """Classic-Phong sampler: outgoing directions concentrate around
     the mirror reflection with cos^Ns statistics (E[cos α] =
     (Ns+1)/(Ns+2)), and huge Ns collapses to the mirror direction."""
-    from montecarlopathtracer_tpu.ops.sampling import (
+    from montecarlopathtracer.ops.sampling import (
         sample_phong_reflect,
         dot3,
     )

@@ -14,14 +14,14 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from montecarlopathtracer_tpu.models.cornell import _Builder
-from montecarlopathtracer_tpu.scene.camera import Camera
-from montecarlopathtracer_tpu.scene.scene import scene_pack_from_model
-from montecarlopathtracer_tpu.render.integrator import (
+from montecarlopathtracer.models.cornell import _Builder
+from montecarlopathtracer.scene.camera import Camera
+from montecarlopathtracer.scene.scene import scene_pack_from_model
+from montecarlopathtracer.render.integrator import (
     TraceConfig,
     render_sample_batch_jit,
 )
-from montecarlopathtracer_tpu.diff.boundary import (
+from montecarlopathtracer.diff.boundary import (
     boundary_grad_translation,
     shadow_boundary_grad_translation,
     unique_edges,

@@ -1,6 +1,6 @@
-"""Golden-image parity runner (VERDICT r1 missing #1).
+"""Golden-image parity runner.
 
-Renders the reference's committed workloads on the current backend and
+Renders the reference's committed workloads on a CUDA GPU and
 compares against its committed PNGs (the reference's only regression
 baseline — SURVEY.md §4):
 
@@ -22,7 +22,7 @@ illum the golden was rendered with. Both the fitted and the nominal
 comparison are recorded.
 
 Writes goldens/*.png + goldens/GOLDEN.json and prints a summary.
-Run on TPU (the session default); ~5 min total.
+Needs the reference checkout (REF below) and a GPU; exits otherwise.
 """
 
 from __future__ import annotations
@@ -61,8 +61,8 @@ def _fit_scale(ours_lin: np.ndarray, golden_u8: np.ndarray) -> float:
 
 
 def render_film(scene, cam, config, settings):
-    from montecarlopathtracer_tpu.render.renderer import Renderer
-    from montecarlopathtracer_tpu.utils.logging import RenderLog
+    from montecarlopathtracer.render.renderer import Renderer
+    from montecarlopathtracer.utils.logging import RenderLog
 
     r = Renderer(scene, cam, config, settings, log=RenderLog(stream=sys.stderr))
     t0 = time.perf_counter()
@@ -91,19 +91,24 @@ def main() -> int:
     def want(name):
         return not args.only or args.only in name
 
-    from montecarlopathtracer_tpu.models import cornell
-    from montecarlopathtracer_tpu.render.integrator import TraceConfig
-    from montecarlopathtracer_tpu.render.renderer import RenderSettings
-    from montecarlopathtracer_tpu.render.film import tonemap_linear, tonemap_identity
-    from montecarlopathtracer_tpu.utils.golden import compare_images
-    from montecarlopathtracer_tpu.utils.image import load_png, save_png
+    from montecarlopathtracer.models import cornell
+    from montecarlopathtracer.render.integrator import TraceConfig
+    from montecarlopathtracer.utils.compile_cache import enable_compile_cache
+    from montecarlopathtracer.render.renderer import RenderSettings
+    from montecarlopathtracer.render.film import tonemap_linear, tonemap_identity
+    from montecarlopathtracer.utils.golden import compare_images
+    from montecarlopathtracer.utils.image import load_png, save_png
 
+    enable_compile_cache()
     os.makedirs(OUT, exist_ok=True)
     backend = jax.default_backend()
-    print(f"backend: {backend}", file=sys.stderr)
-    intersector = "megakernel" if backend == "tpu" else "brute"
-    spp_scale = 1 if backend == "tpu" else 64  # CPU smoke: 16 spp only
-    report = {"backend": backend}
+    if backend != "gpu":
+        raise SystemExit(f"golden_run renders on a GPU, found {backend!r}")
+    dev = jax.devices()[0]
+    print(f"device: {dev.device_kind} x{len(jax.devices())}", file=sys.stderr)
+    intersector = "nearest"
+    spp_scale = 1
+    report = {"platform": dev.platform, "device_kind": dev.device_kind}
 
     # ---- scene1 / scene2 vs result1/result2 --------------------------------
     for n, golden_name in ((1, "result1.png"), (2, "result2.png")):
@@ -179,15 +184,16 @@ def _run_steps(report, spp_scale, intersector):
     illum scale. Parity = a monotone-converging curve (both sequences
     estimate the same limit image; MC noise shrinks with spp on both
     sides, ours with different RNG)."""
-    from montecarlopathtracer_tpu.models import cornell
-    from montecarlopathtracer_tpu.render.integrator import TraceConfig
-    from montecarlopathtracer_tpu.render.renderer import (
+    from montecarlopathtracer.models import cornell
+    from montecarlopathtracer.render.integrator import TraceConfig
+    from montecarlopathtracer.utils.compile_cache import enable_compile_cache
+    from montecarlopathtracer.render.renderer import (
         Renderer,
         RenderSettings,
     )
-    from montecarlopathtracer_tpu.render.film import tonemap_linear
-    from montecarlopathtracer_tpu.utils.golden import compare_images
-    from montecarlopathtracer_tpu.utils.image import load_png, save_png
+    from montecarlopathtracer.render.film import tonemap_linear
+    from montecarlopathtracer.utils.golden import compare_images
+    from montecarlopathtracer.utils.image import load_png, save_png
 
     for n in (1, 2):
         step_dir = f"{REF}/CVMCTracer/CVMCTracer/result{n}step"
@@ -256,12 +262,13 @@ def _run_steps(report, spp_scale, intersector):
 
 
 def _run_mcrt(report, spp_scale, intersector):
-    from montecarlopathtracer_tpu.models import cornell
-    from montecarlopathtracer_tpu.render.integrator import TraceConfig
-    from montecarlopathtracer_tpu.render.renderer import RenderSettings
-    from montecarlopathtracer_tpu.render.film import tonemap_identity
-    from montecarlopathtracer_tpu.utils.golden import compare_images
-    from montecarlopathtracer_tpu.utils.image import load_png, save_png
+    from montecarlopathtracer.models import cornell
+    from montecarlopathtracer.render.integrator import TraceConfig
+    from montecarlopathtracer.utils.compile_cache import enable_compile_cache
+    from montecarlopathtracer.render.renderer import RenderSettings
+    from montecarlopathtracer.render.film import tonemap_identity
+    from montecarlopathtracer.utils.golden import compare_images
+    from montecarlopathtracer.utils.image import load_png, save_png
 
     golden_path = f"{REF}/MCRT/QuinEngine/result.png"
     golden = load_png(golden_path)
@@ -298,12 +305,13 @@ def _run_mcrt(report, spp_scale, intersector):
 
 
 def _run_scene3(report, spp_scale, intersector, only=""):
-    from montecarlopathtracer_tpu.models import cornell
-    from montecarlopathtracer_tpu.render.integrator import TraceConfig
-    from montecarlopathtracer_tpu.render.renderer import RenderSettings
-    from montecarlopathtracer_tpu.render.film import tonemap_linear
-    from montecarlopathtracer_tpu.utils.golden import compare_images
-    from montecarlopathtracer_tpu.utils.image import load_png, save_png
+    from montecarlopathtracer.models import cornell
+    from montecarlopathtracer.render.integrator import TraceConfig
+    from montecarlopathtracer.utils.compile_cache import enable_compile_cache
+    from montecarlopathtracer.render.renderer import RenderSettings
+    from montecarlopathtracer.render.film import tonemap_linear
+    from montecarlopathtracer.utils.golden import compare_images
+    from montecarlopathtracer.utils.image import load_png, save_png
 
     # scene03 is not wired into the reference's main.cpp; result3/4 are
     # MC.docx Figures 3/4 ("Blinn-Phong model" vs "Phong model") of the

@@ -1,19 +1,10 @@
-"""Scaling-efficiency harness (VERDICT r2 missing #4 / BASELINE north
-star "≥90% linear scaling").
+"""Scaling-efficiency harness (BASELINE north star "≥90% linear
+scaling").
 
 Measures the sharded SPMD render pass (`parallel/sharded.py`) across
-mesh sizes and writes SCALING.json. Two regimes:
-
-- On real multi-chip hardware (a pod slice) this measures true weak
-  scaling: per-device work held constant, efficiency =
-  t(1 device) / t(n devices); the BASELINE target is ≥90% at n=2 hosts.
-- On the virtual CPU mesh (`--xla_force_host_platform_device_count=8`,
-  the only thing available in this environment) all "devices" share the
-  same host cores, so wall time necessarily grows with n — the curve
-  here measures the SPMD program's *overhead* (collective + partition
-  bookkeeping), reported as total-work throughput per mesh size. The
-  harness is identical either way; only the interpretation changes
-  (recorded in the JSON's ``regime`` field).
+mesh sizes on the GPUs of one host and prints one JSON line per size:
+weak scaling, per-device work held constant, efficiency =
+t(1 device) / t(n devices). Exits when JAX finds no GPU.
 
 Weak scaling setup: each device owns a fixed 64-row × 512-wide film
 band at 2 spp; the mesh grows along the ``rays`` axis, so the frame
@@ -21,8 +12,7 @@ height is 64·n. The film psum over the spp axis and the band-sharded
 output exercise the collective path at every size.
 
 Usage:
-    XLA_FLAGS=--xla_force_host_platform_device_count=8 \
-    JAX_PLATFORMS=cpu python tools/scaling_bench.py
+    python tools/scaling_bench.py
 """
 
 from __future__ import annotations
@@ -33,7 +23,6 @@ import sys
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 ROWS_PER_DEVICE = 64
 WIDTH = 512
@@ -42,32 +31,34 @@ SPP = 2
 
 def main() -> int:
     import jax
-    import numpy as np
 
-    from montecarlopathtracer_tpu.models import cornell
-    from montecarlopathtracer_tpu.parallel.mesh import make_mesh
-    from montecarlopathtracer_tpu.parallel.sharded import sharded_sample_pass
-    from montecarlopathtracer_tpu.render.integrator import (
+    from montecarlopathtracer.models import cornell
+    from montecarlopathtracer.parallel.mesh import make_mesh
+    from montecarlopathtracer.parallel.sharded import sharded_sample_pass
+    from montecarlopathtracer.render.integrator import (
         TraceConfig,
         render_rows,
     )
 
-    n_dev = len(jax.devices())
-    n_cores = os.cpu_count() or 1
-    backend = jax.default_backend()
-    regime = "weak-scaling" if backend == "tpu" else "virtual-mesh-overhead"
-    print(f"backend={backend} devices={n_dev} cores={n_cores} "
-          f"regime={regime}", file=sys.stderr)
+    from montecarlopathtracer.utils.compile_cache import enable_compile_cache
 
-    config = TraceConfig(mode="fixed", max_depth=5, ray_chunk=0)
+    enable_compile_cache()
+    if jax.default_backend() != "gpu":
+        raise SystemExit(f"scaling_bench needs a GPU, found {jax.default_backend()!r}")
+    n_dev = len(jax.devices())
+    kind = jax.devices()[0].device_kind
+    print(f"device={kind} devices={n_dev}", file=sys.stderr)
+
+    config = TraceConfig(
+        mode="fixed", max_depth=5, ray_chunk=0, intersector="nearest"
+    )
 
     def timed(fn, *args, reps=3):
-        out = fn(*args)
-        float(np.asarray(out).ravel()[0])  # fetch fence (compile+warmup)
+        fn(*args).block_until_ready()  # compile + warm-up
         t0 = time.perf_counter()
         for r in range(reps):
             out = fn(*args)
-        float(np.asarray(out).ravel()[0])
+        out.block_until_ready()
         return (time.perf_counter() - t0) / reps
 
     # SPMD bookkeeping overhead, measured directly: the SAME single-
@@ -111,44 +102,17 @@ def main() -> int:
         if t1 is None:
             t1 = dt
         eff = t1 / dt  # weak scaling: same per-device work each size
-        # On a shared-core virtual mesh, n devices' work can at best
-        # overlap onto n_cores cores: the compute-bound floor for the
-        # pass is t1 * n / min(n, n_cores). Efficiency vs that floor
-        # isolates SPMD overhead from the hardware's core limit.
-        t_floor = t1 * n / min(n, n_cores)
         row = {
             "devices": n,
             "height": height,
             "seconds_per_pass": round(dt, 4),
             "total_msamples_s": round(samples / dt / 1e6, 3),
             "weak_scaling_efficiency": round(eff, 3),
-            "efficiency_vs_shared_core_floor": round(t_floor / dt, 3),
         }
         rows.append(row)
         print(json.dumps(row), flush=True)
 
-    out = {
-        "backend": backend,
-        "regime": regime,
-        "host_cores": n_cores,
-        "note": (
-            "weak_scaling_efficiency = t(1)/t(n) at constant per-device "
-            "work; meaningful as scaling only on real multi-chip "
-            "hardware. On the virtual CPU mesh all devices share "
-            "host_cores cores, so the informative numbers are "
-            "spmd_overhead_pct (sharded vs unsharded, same work, one "
-            "device) and efficiency_vs_shared_core_floor "
-            "(t1*n/min(n,cores) / t(n))"
-        ),
-        "spmd_overhead": overhead,
-        "rows_per_device": ROWS_PER_DEVICE,
-        "width": WIDTH,
-        "spp": SPP,
-        "results": rows,
-    }
-    with open(os.path.join(ROOT, "SCALING.json"), "w") as f:
-        json.dump(out, f, indent=1)
-    print(f"wrote SCALING.json ({len(rows)} sizes)", file=sys.stderr)
+    print(json.dumps({"device_kind": kind, "results": rows}))
     return 0
 
 
